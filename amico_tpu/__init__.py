@@ -1,9 +1,9 @@
-"""amico_tpu — TPU-native microstructure-imaging framework.
+"""amico_tpu — JAX-native microstructure-imaging framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of AMICO
+A from-scratch JAX/XLA re-design of the capabilities of AMICO
 (Accelerated Microstructure Imaging via Convex Optimization): per-voxel
 dictionary fits of diffusion-MRI microstructure models as massively batched
-non-negative least-squares / elastic-net solves on TPU.
+non-negative least-squares / elastic-net solves on an accelerator.
 
 Public API mirrors the reference package surface
 (/root/reference/amico/__init__.py:1-9): ``Evaluation``, ``setup``,

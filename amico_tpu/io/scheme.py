@@ -1,6 +1,6 @@
 """Acquisition-scheme layer.
 
-TPU-native re-implementation of the reference scheme machinery
+JAX-framework re-implementation of the reference scheme machinery
 (/root/reference/amico/scheme.py:19-154).  Behavior parity:
 
 * Camino-style text files, optional header lines, two formats

@@ -1,6 +1,6 @@
 """LUT / zonal-rotation engine.
 
-TPU-native re-design of the reference's Cython LUT machinery
+Re-design of the reference's Cython LUT machinery
 (/root/reference/amico/lut.pyx).  Same math, tensorized:
 
 * high-resolution response functions are synthesized on a fixed 500-dir

@@ -1,4 +1,4 @@
-"""Model zoo: the six reference models, TPU-native
+"""Model zoo: the six reference models, batched on device
 (/root/reference/amico/models.pyx:221,375,656,995,1290,1344).
 
 Plugin hook parity: extra model classes can be injected via the

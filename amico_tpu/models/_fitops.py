@@ -34,19 +34,10 @@ def error_maps(A, x, Y, compute_rmse: bool, compute_nrmse: bool) -> dict:
 
 
 def solve_tiles(G, b, L, lam1, lam2, mask=None, solver_kw=None,
-                backend: str = 'xla', m0=None, x0=None):
-    """Dispatch a per-tile QP solve: G (C,n,n), b (C,M,n), L (C,).
-
-    backend 'xla' uses ops.solvers.nneg_qp_batch; 'pallas' uses the
-    VMEM-resident tile kernel (ops.pallas_qp) -- same math, one HBM pass.
-    ``m0``/``x0`` warm-start the active-set rounds (skipping FISTA).
-    """
-    kw = dict(solver_kw or {})
-    if backend == 'pallas':
-        from ..ops.pallas_qp import nneg_qp_tiles_pallas
-        interpret = jax.default_backend() != 'tpu'
-        return nneg_qp_tiles_pallas(G, b, L, lam1, lam2, mask=mask,
-                                    interpret=interpret, m0=m0, x0=x0, **kw)
+                m0=None, x0=None):
+    """Per-tile QP solve through ops.solvers.nneg_qp_batch: G (C,n,n),
+    b (C,M,n), L (C,).  ``m0``/``x0`` warm-start the active-set rounds
+    (skipping FISTA)."""
     from ..ops.solvers import nneg_qp_batch
     return nneg_qp_batch(G[:, None], b, lam1, lam2, mask=mask,
-                         L=L[:, None], m0=m0, x0=x0, **kw)
+                         L=L[:, None], m0=m0, x0=x0, **(solver_kw or {}))

@@ -25,9 +25,6 @@ class CylinderZeppelinBall(BaseModel):
     def __init__(self):
         self.id = 'CylinderZeppelinBall'
         self.name = 'Cylinder-Zeppelin-Ball'
-        # the dense-support FISTA-heavy solve batches across voxels in
-        # the XLA path (see base._solver_backend); 'auto' resolves there
-        self._prefer_xla_backend = True
         self.maps_name = ['v', 'a', 'd']
         self.maps_descr = ['Intra-cellular volume fraction',
                            'Mean axonal diameter', 'Axonal density']
@@ -52,11 +49,10 @@ class CylinderZeppelinBall(BaseModel):
                 'd_isos': self.d_isos, 'isExvivo': self.isExvivo}
 
     def set_solver(self, lambda1=0.0, lambda2=4.0, fista_iters=None,
-                   cd_sweeps=None, refine_rounds=None, cg_iters=None,
-                   backend=None):
+                   cd_sweeps=None, refine_rounds=None, cg_iters=None):
         """Defaults per reference models.pyx:439-442."""
         self._set_solver_common(lambda1, lambda2, fista_iters, cd_sweeps,
-                                refine_rounds, cg_iters, backend)
+                                refine_rounds, cg_iters)
 
     def _solver_kwargs(self) -> dict:
         """The lambda2=4 ridge makes this model's QP dense-support and
@@ -136,7 +132,6 @@ class CylinderZeppelinBall(BaseModel):
         configs = self._common_configs(evaluation)
         kernels = evaluation.KERNELS
         solver_kw = self._solver_kwargs()
-        backend = self._solver_backend()
         lam1 = float(self.solver_params['lambda1'])
         lam2 = float(self.solver_params['lambda2'])
 
@@ -176,7 +171,7 @@ class CylinderZeppelinBall(BaseModel):
             A = A_all[dirs]
             b = project(A, Y)
             x = solve_tiles(G_all[dirs], b, L_all[dirs], lam1, lam2,
-                            solver_kw=solver_kw, backend=backend)
+                            solver_kw=solver_kw)
 
             # estimates (models.pyx:617-636)
             f1 = jnp.sum(x[..., :n_rs], axis=-1)
@@ -197,9 +192,9 @@ class CylinderZeppelinBall(BaseModel):
             shapes['rmse'] = ()
         if configs['compute_nrmse']:
             shapes['nrmse'] = ()
-        cache_key = ('czb', backend, tuple(sorted(solver_kw.items())),
+        cache_key = ('czb', tuple(sorted(solver_kw.items())),
                      lam1, lam2, n_rs, n_perp, n_iso, nS,
                      tuple(sorted(configs.items())))
         return self._run_tiled_fit(evaluation, fit_chunk, shapes,
-                                   backend=backend, cache_key=cache_key,
+                                   cache_key=cache_key,
                                    consts=(A_all, G_all, L_all, Rs))

@@ -2,12 +2,11 @@
 
 The reference fit loop iterates voxels one at a time, gathering a per-voxel
 dictionary ``A[:, :] = K[:, :, lut_idx]`` and calling a C solver
-(/root/reference/amico/models.pyx:606-615,901-942).  The TPU engine inverts
+(/root/reference/amico/models.pyx:606-615,901-942).  This engine inverts
 this: voxels are **bucketed by LUT direction index** so that every tile of
 ``tile_size`` voxels shares a single dictionary.  The per-tile Gram matrix
-is then read once per tile (and can live in VMEM for the whole solve)
-instead of once per voxel -- turning the solver into large MXU matmuls
-(SURVEY.md section 7).
+is then read once per tile instead of once per voxel -- turning the solver
+into batched matrix products (SURVEY.md section 7).
 
 Host-side (NumPy) responsibilities: sorting voxels by direction, padding
 ragged buckets to tile multiples, and scattering results back.  The padding
@@ -106,27 +105,3 @@ def iter_tile_chunks(n_tiles: int, chunk: int):
         stop = min(start + chunk, n_tiles)
         yield start, stop, chunk - (stop - start)
 
-
-def auto_tile_size(counts: np.ndarray,
-                   widths=(128, 256, 384, 512, 640, 768, 896, 1024),
-                   step_overhead: float = 64.0) -> int:
-    """Lane width minimizing predicted solve time for direction-bucket
-    sizes ``counts``: padded slots scale the work, and the per-slot rate
-    rises with M as M/(M + c) (per-grid-step overhead, measured c~64 on
-    v5e) -- wide tiles only pay off when buckets fill them.  Widths are
-    every multiple of 128 (the VPU lane tile): the original
-    power-of-two-only ladder left an 11% win on the table at full brain,
-    where buckets average ~819 voxels and M=896 pads 1.09x vs 1024's
-    1.25x -- an 11% solver-only speedup when adopted in round-4 tuning,
-    within 1% of this model's prediction (current absolute throughput:
-    BENCH_r*.json solver_only_voxps).  Shared by the fit driver
-    (models/base.py) and bench.py so the bench always measures the width
-    production picks."""
-    counts = np.asarray(counts)
-    best_m, best = widths[0], float('inf')
-    for m in widths:
-        slots = int(np.sum(-(-counts // m) * m)) if counts.size else m
-        cost = slots * (1.0 + step_overhead / m)
-        if cost < best:
-            best_m, best = m, cost
-    return best_m

@@ -59,13 +59,12 @@ class FreeWater(BaseModel):
                 'type': self.type}
 
     def set_solver(self, lambda1=0.0, lambda2=1e-3, fista_iters=None,
-                   cd_sweeps=None, refine_rounds=None, cg_iters=None,
-                   backend=None):
+                   cd_sweeps=None, refine_rounds=None, cg_iters=None):
         """Defaults per reference models.pyx:1077-1080.  (The reference notes
         'need more regul for mouse data' lambda2=0.25 but the assignment is
         dead code, models.pyx:1082-1085 -- we keep the live behavior.)"""
         self._set_solver_common(lambda1, lambda2, fista_iters, cd_sweeps,
-                                refine_rounds, cg_iters, backend)
+                                refine_rounds, cg_iters)
 
     def generate(self, out_path, aux, idx_in, idx_out, ndirs):
         """Reference models.pyx:1088-1110."""
@@ -122,7 +121,6 @@ class FreeWater(BaseModel):
             evaluation.get_config('doSaveCorrectedDWI'))
         kernels = evaluation.KERNELS
         solver_kw = self._solver_kwargs()
-        backend = self._solver_backend()
         lam1 = float(self.solver_params['lambda1'])
         lam2 = float(self.solver_params['lambda2'])
 
@@ -160,7 +158,7 @@ class FreeWater(BaseModel):
             A = A_all[dirs]
             b = project(A, Y)
             x = solve_tiles(G_all[dirs], b, L_all[dirs], lam1, lam2,
-                            solver_kw=solver_kw, backend=backend)
+                            solver_kw=solver_kw)
 
             # estimates (models.pyx:1240-1255)
             x_sum = jnp.sum(x, axis=-1) + 1e-16
@@ -190,9 +188,9 @@ class FreeWater(BaseModel):
             shapes['nrmse'] = ()
         if configs['save_corrected_DWI']:
             shapes['y_corrected'] = (nS,)
-        cache_key = ('freewater', backend, tuple(sorted(solver_kw.items())),
+        cache_key = ('freewater', tuple(sorted(solver_kw.items())),
                      lam1, lam2, is_mouse, n_perp, n_iso, nS,
                      tuple(sorted(configs.items())))
         return self._run_tiled_fit(evaluation, fit_chunk, shapes,
-                                   backend=backend, cache_key=cache_key,
+                                   cache_key=cache_key,
                                    consts=(A_all, G_all, L_all))

@@ -82,41 +82,23 @@ class NODDI(BaseModel):
 
     def set_solver(self, lambda1=5e-1, lambda2=1e-3, fista_iters=None,
                    cd_sweeps=None, refine_rounds=None, cg_iters=None,
-                   backend=None, stage_iters=None, precision=None,
-                   tiebreak=None):
+                   stage_iters=None, tiebreak=None):
         """Defaults per reference models.pyx:721-724.  ``stage_iters``
         overrides the per-stage solver schedule
         ((fista, rounds, cg, inner) x2, (rounds, cg, inner)); a ``cg``
         entry may be a per-round tuple (rounds unroll), an ``inner``
-        entry may be a per-round tuple, and each stage tuple may carry up
-        to two trailing entries: ``converge`` (False | True | int
-        continuation-CG budget -- stability continuation rounds after the
-        schedule) and ``add_k`` (top-k violated-atom adds per round).
-        The default (base.DEFAULT_NODDI_STAGE_ITERS) is a pure active-set
-        schedule validated against the exact oracle on the full
-        dictionary.  ``precision`` overrides the per-stage MXU precision
-        of the fused kernel: a single string ('highest' | 'split3' |
-        'default') applied to all three stages, or a 3-tuple with one
-        entry per stage.  Each per-stage ENTRY may itself be a
-        (iter, polish) or (iter, late, n_late) pair -- pair forms are
-        only valid nested inside the 3-tuple, never at top level (a
-        top-level tuple is always read as per-stage entries; passing a
-        bare pair would silently assign its elements to stages 1..2)."""
+        entry may be a per-round tuple (the solver runs its maximum), and
+        each stage tuple may carry up to two trailing entries:
+        ``converge`` (False | True | int continuation-CG budget --
+        stability continuation rounds after the schedule) and ``add_k``
+        (top-k violated-atom adds per round).  The default
+        (base.DEFAULT_NODDI_STAGE_ITERS) is a pure active-set schedule
+        validated against the exact oracle on the full dictionary."""
         self._set_solver_common(lambda1, lambda2, fista_iters, cd_sweeps,
-                                refine_rounds, cg_iters, backend)
+                                refine_rounds, cg_iters)
         if stage_iters is not None:
             stage_iters = tuple(tuple(t) for t in stage_iters)
         self.solver_params['stage_iters'] = stage_iters
-        if precision is not None and not isinstance(precision, str):
-            precision = tuple(precision)
-            if len(precision) != 3 or not all(
-                    isinstance(e, (str, tuple, list)) for e in precision):
-                raise ValueError(
-                    'precision must be a string or a 3-tuple of per-stage '
-                    f'entries, got {precision!r} (pair forms like '
-                    "('split3', 'highest', 2) are only valid nested inside "
-                    'the 3-tuple)')
-        self.solver_params['precision'] = precision
         # ``tiebreak``: stage-2 degenerate-vertex objective tie-break.
         # None/False = off (the shipped default; the round-5 campaign
         # measured -5% throughput with the tail unchanged), True = on
@@ -193,6 +175,16 @@ class NODDI(BaseModel):
         return KERNELS
 
     def fit(self, evaluation):
+        fit_chunk, shapes, cache_key, consts = self.chunk_program(evaluation)
+        return self._run_tiled_fit(evaluation, fit_chunk, shapes,
+                                   cache_key=cache_key, consts=consts)
+
+    def chunk_program(self, evaluation):
+        """The per-chunk device program of :meth:`fit` and what the tile
+        driver needs to run it: ``(fit_chunk, output_shapes, cache_key,
+        consts)``, where ``fit_chunk(Y (C,M,nS), dirs (C,), valid (C,M),
+        *consts)`` returns the chunk's output dict.  Exposed so the
+        benchmark and the compile check run exactly what ``fit`` runs."""
         import jax.numpy as jnp
 
         configs = self._common_configs(evaluation)
@@ -200,7 +192,6 @@ class NODDI(BaseModel):
             evaluation.get_config('doSaveModulatedMaps'))
         kernels = evaluation.KERNELS
         solver_kw = self._solver_kwargs()
-        backend = self._solver_backend()
         lam1 = float(self.solver_params['lambda1'])
         lam2 = float(self.solver_params['lambda2'])
         # per-stage schedule: explicit stage_iters > legacy iteration knobs
@@ -229,22 +220,17 @@ class NODDI(BaseModel):
         # optional trailing per-stage entries: ``converge`` (False|True|int
         # CG budget -- continuation rounds after the schedule until the
         # working sets are stable) and ``add_k`` (top-k atom adds per
-        # round); see ops/pallas_qp._make_noddi_kernel
+        # round); see ops/solvers.nneg_qp_batch
         s1cv = _s1[4] if len(_s1) > 4 else False
         s2cv = _s2[4] if len(_s2) > 4 else False
         s3cv = _s3[3] if len(_s3) > 3 else False
         s1ak = int(_s1[5]) if len(_s1) > 5 else 1
         s2ak = int(_s2[5]) if len(_s2) > 5 else 1
         s3ak = int(_s3[4]) if len(_s3) > 4 else 1
-        # per-round inner-pass tuples are a fused-kernel refinement; the
-        # stagewise XLA path takes their cap (ops/solvers has one inner
-        # count per solve)
+        # per-round inner-pass tuples run at their cap (ops/solvers has one
+        # inner count per solve)
         s1i, s2i, s3i = (max(v) if isinstance(v, tuple) else v
                          for v in (s1i, s2i, s3i))
-        precision = self.solver_params.get('precision')
-        if precision is None:
-            from .base import DEFAULT_NODDI_PRECISION
-            precision = DEFAULT_NODDI_PRECISION
 
         n_wm = kernels['wm'].shape[0]
         is_exvivo = bool(self.isExvivo)
@@ -270,16 +256,14 @@ class NODDI(BaseModel):
         # per-direction dictionaries, Gram matrices and Lipschitz constants,
         # computed ONCE and cached across fit() calls on the same KERNELS
         # (the reference re-copies the dictionary per voxel,
-        # models.pyx:905-908); single compiled dispatch + no host re-uploads
-        # -- both eager op latency and wire transfers dominate on
-        # tunneled/remote TPU backends
+        # models.pyx:905-908); one compiled dispatch and no host re-uploads
         # NB: cache holds a reference to the keyed array and compares with
         # `is` -- id() alone can be recycled after garbage collection
         prep_key = (kernels['wm'], is_exvivo, single_b0)
         cached = getattr(self, '_prep_cache', None)
         if cached is not None and cached[0][0] is prep_key[0] \
                 and cached[0][1:] == prep_key[1:]:
-            (A_all, G1_all, L1_all, G2_all, L2_all, A2_all, A2T_all,
+            (A_all, G1_all, L1_all, G2_all, L2_all, A2_all,
              iso_dwi, K_iso, norms, icvf, kappa) = cached[1]
         else:
             K_wm = jnp.asarray(np.ascontiguousarray(
@@ -290,9 +274,8 @@ class NODDI(BaseModel):
             kappa = jnp.asarray(kernels['kappa'], jnp.float32)
             # rows_dwi enters _prep as a CLOSED-OVER numpy constant, not a
             # traced argument: a traced index array turns every axis-1
-            # slice into a dynamic gather in the per-chunk program --
-            # measured +0.22s per full-brain fit (gap_probe r4) vs the
-            # constant-index form XLA folds into static slices
+            # slice into a dynamic gather in the per-chunk program, where
+            # the constant-index form folds into static slices
             rows_c = np.asarray(rows_dwi, np.int32)
 
             @jax.jit
@@ -308,22 +291,16 @@ class NODDI(BaseModel):
                 A2_all = A_all[:, rows_c, :n_wm] * norms[None, None, :]
                 G2_all = gram(A2_all)
                 L2_all = power_iteration_L(G2_all)
-                # per-direction transposed DWI dictionary: gathered whole
-                # per chunk so the chunk program never re-slices /
-                # re-transposes (direction-only dependent, 1 copy in HBM)
-                A2T_all = jnp.swapaxes(A2_all, 1, 2)
                 return (A_all, G1_all, L1_all, G2_all, L2_all, A2_all,
-                        A2T_all, K_iso[rows_c])
+                        K_iso[rows_c])
 
-            (A_all, G1_all, L1_all, G2_all, L2_all, A2_all, A2T_all,
+            (A_all, G1_all, L1_all, G2_all, L2_all, A2_all,
              iso_dwi) = _prep(K_wm, K_iso, norms)
             self._prep_cache = (prep_key,
                                 (A_all, G1_all, L1_all, G2_all, L2_all,
-                                 A2_all, A2T_all, iso_dwi,
+                                 A2_all, iso_dwi,
                                  K_iso, norms, icvf, kappa))
 
-        use_fused = (backend == 'pallas')
-        want_x = configs['compute_rmse'] or configs['compute_nrmse']
         # static DWI-row index for the chunk programs (see _prep note)
         rows_c = np.asarray(rows_dwi, np.int32)
 
@@ -339,36 +316,6 @@ class NODDI(BaseModel):
         nb_m, nb_p = _kappa_neighbours(np.asarray(kernels['icvf']),
                                        np.asarray(kernels['kappa']))
 
-        def fit_chunk_fused(Y, dirs, valid, A_all, G1_all, G2_all, A2T_all,
-                            iso_dwi, icvf, kappa, nb_m, nb_p):
-            """All three stages in one Pallas kernel invocation per tile
-            (ops.pallas_qp.noddi_fused_tiles_pallas)."""
-            import jax
-            from ..ops.pallas_qp import noddi_fused_tiles_pallas
-
-            A_full = A_all[dirs]                        # (C, nS, na)
-            b1 = project(A_full, Y)
-            Y_dwi = Y[..., rows_c]
-            out = noddi_fused_tiles_pallas(
-                G1_all[dirs], G2_all[dirs], b1, Y_dwi, A2T_all[dirs],
-                iso_dwi, icvf, kappa,
-                lam1=lam1, lam2=lam2, stage_iters=stage_iters,
-                want_x=want_x, is_exvivo=is_exvivo, precision=precision,
-                nb_minus=nb_m, nb_plus=nb_p, tiebreak_cg=tb_cg,
-                interpret=jax.default_backend() != 'tpu')
-            est3, x = out if want_x else (out, None)
-            ndi, odi, fwf = est3[..., 0], est3[..., 1], est3[..., 2]
-            est = est3 * valid[..., None]
-            res = {'estimates': est}
-            if want_x:
-                res.update(error_maps(A_full, x, Y, configs['compute_rmse'],
-                                      configs['compute_nrmse']))
-            if configs['compute_modulated_maps']:
-                tf = 1.0 - fwf
-                res['estimates_mod'] = jnp.stack([ndi * tf, odi * tf], -1) \
-                    * valid[..., None]
-            return res
-
         def fit_chunk(Y, dirs, valid, A_all, G1_all, L1_all, G2_all, L2_all,
                       A2_all, iso_dwi, icvf, kappa, nb_m, nb_p):
             A_full = A_all[dirs]                        # (C, nS, na)
@@ -377,7 +324,7 @@ class NODDI(BaseModel):
             b1 = project(A_full, Y)
 
             # ---- stage 1: NNLS for the CSF fraction (models.pyx:911)
-            x1 = solve_tiles(G1, b1, L1, 0.0, 0.0, backend=backend,
+            x1 = solve_tiles(G1, b1, L1, 0.0, 0.0,
                              solver_kw=dict(fista_iters=s1f, cd_sweeps=0,
                                             refine_rounds=s1r, cg_iters=s1cg,
                                             inner_passes=s1i, converge=s1cv,
@@ -392,14 +339,13 @@ class NODDI(BaseModel):
             A2 = A2_all[dirs]
             b2 = project(A2, Y2)
             x2 = solve_tiles(G2_all[dirs], b2, L2_all[dirs], lam1, lam2,
-                             backend=backend,
                              solver_kw=dict(fista_iters=s2f, cd_sweeps=0,
                                             refine_rounds=s2r, cg_iters=s2cg,
                                             inner_passes=s2i, converge=s2cv,
                                             add_k=s2ak))
             if tb_cg:
-                # degenerate-vertex objective tie-break (same remedy as
-                # the fused kernel; ops.solvers.noddi_stage2_tiebreak)
+                # degenerate-vertex objective tie-break
+                # (ops.solvers.noddi_stage2_tiebreak)
                 from ..ops.solvers import noddi_stage2_tiebreak
                 x2 = noddi_stage2_tiebreak(G2_all[dirs], b2, x2, lam1,
                                            lam2, nb_m, nb_p,
@@ -412,7 +358,7 @@ class NODDI(BaseModel):
             # warm start: seed the working set with the (small) allowed
             # support and start CG from the stage-1 solution on it
             x = solve_tiles(G1, b1, L1, 0.0, 0.0, mask=mask,
-                            backend=backend, m0=mask, x0=x1 * mask,
+                            m0=mask, x0=x1 * mask,
                             solver_kw=dict(fista_iters=0, cd_sweeps=0,
                                            refine_rounds=s3r, cg_iters=s3cg,
                                            inner_passes=s3i, converge=s3cv,
@@ -455,14 +401,10 @@ class NODDI(BaseModel):
         # (e.g. a permuted protocol) would otherwise share an executable
         # built for the wrong rows (caught by
         # tests/test_solver_review.py::test_noddi_rows_from_scheme_not_shape)
-        cache_key = ('noddi', backend, use_fused, stage_iters, precision,
+        cache_key = ('noddi', stage_iters,
                      lam1, lam2, is_exvivo, single_b0, n_wm, nS, tb_cg,
                      tuple(rows_c.tolist()),
                      tuple(sorted(configs.items())))
-        consts = (A_all, G1_all, G2_all, A2T_all, iso_dwi, icvf, kappa,
-                  nb_m, nb_p) \
-            if use_fused else (A_all, G1_all, L1_all, G2_all, L2_all,
-                               A2_all, iso_dwi, icvf, kappa, nb_m, nb_p)
-        return self._run_tiled_fit(
-            evaluation, fit_chunk_fused if use_fused else fit_chunk,
-            shapes, backend=backend, cache_key=cache_key, consts=consts)
+        consts = (A_all, G1_all, L1_all, G2_all, L2_all, A2_all, iso_dwi,
+                  icvf, kappa, nb_m, nb_p)
+        return fit_chunk, shapes, cache_key, consts

@@ -1,6 +1,6 @@
 """Real spherical-harmonics basis (even orders).
 
-TPU-native replacement for the reference's dipy dependency
+In-framework replacement for the reference's dipy dependency
 (``real_sh_descoteaux``, /root/reference/amico/lut.pyx:11,117-126).  The
 reference only needs a *real, orthonormal, symmetric (even-l)* SH basis: it
 fits kernels in SH space, rotates them with the zonal-harmonic trick
@@ -97,7 +97,7 @@ def _assoc_legendre_all(lmax: int, x: np.ndarray) -> np.ndarray:
 def real_sh_basis(lmax: int, theta, phi) -> np.ndarray:
     """Evaluate the real even-order SH basis at (theta, phi).
 
-    Returns (N, nSH) design matrix, the TPU-framework analog of the
+    Returns (N, nSH) design matrix, the analog of the
     reference's ``real_sh_descoteaux(lmax, theta, phi)[0]`` (lut.pyx:118).
     """
     theta = np.atleast_1d(np.asarray(theta, np.float64))

@@ -1,9 +1,9 @@
-"""Batched non-negative solvers (the TPU fit engine's numerical core).
+"""Batched non-negative solvers (the fit engine's numerical core).
 
 The reference calls SPAMS' active-set ``nnls``/LARS ``lasso`` once per voxel
 from a Cython ``nogil`` loop (/root/reference/amico/models.pyx:615,911,926,
 940,1238,1569).  Active-set methods are branchy and voxel-divergent -- the
-wrong shape for SIMD hardware -- so the TPU build solves the same strictly
+wrong shape for SIMD hardware -- so this build solves the same strictly
 convex problem
 
     min_x  0.5 ||y - A x||^2 + lam1 ||x||_1 + 0.5 lam2 ||x||^2,   x >= 0
@@ -13,7 +13,7 @@ on the *normal equations*:  min_x 0.5 x'Gx - b'x + ...,  with G = A'A,
 b = A'y, via a fixed-iteration scheme that vectorizes perfectly over
 thousands of voxels:
 
-1. **FISTA** with adaptive (gradient) restart -- MXU-bound batched matvecs;
+1. **FISTA** with adaptive (gradient) restart -- batched matvecs;
 2. **cyclic coordinate-descent polish** -- exact per-coordinate minimization
    producing exact zeros (needed for the NODDI support detection,
    models.pyx:933-936) and fast tail convergence on the ill-conditioned
@@ -60,8 +60,8 @@ class _FistaState(NamedTuple):
 def _mv(G, x):
     """Broadcasting matvec: (..., n, n) @ (..., n) -> (..., n).
 
-    NB: precision HIGHEST -- on TPU the default matmul precision lowers f32
-    to bf16 passes, which makes CG diverge on ill-conditioned dictionaries
+    NB: precision HIGHEST -- a reduced-precision f32 product (bf16 passes,
+    or TF32 on GPUs) makes CG diverge on ill-conditioned dictionaries
     (cond(G) ~ 1e8 for NODDI)."""
     return jnp.squeeze(jnp.matmul(G, x[..., None],
                                   precision=jax.lax.Precision.HIGHEST), -1)
@@ -295,7 +295,7 @@ def nneg_qp_batch(G, b, lam1=0.0, lam2=0.0, mask=None, L=None,
             if mask is not None:
                 m_init = m_init * mask
         if cg_schedule is not None:
-            # equal-budget runs stay rolled in fori_loops (see pallas_qp)
+            # equal-budget runs stay rolled in fori_loops
             carry = (x, m_init, 0, False)
             sched = [int(it) for it in cg_schedule[:refine_rounds]]
             # a schedule shorter than refine_rounds extends at its last
@@ -386,8 +386,7 @@ def nnls_from_A(A, y, **kw):
 def noddi_stage2_tiebreak(G2, b2, x2, lam1, lam2, nb_minus, nb_plus,
                           cg_iters: int = 8):
     """Degenerate-vertex objective tie-break for the NODDI stage-2 lasso
-    (XLA-path twin of the in-kernel version in ops.pallas_qp; see the
-    kernel comment and PARITY.md 'error tail' for the root cause).
+    (see PARITY.md 'error tail' for the root cause).
 
     For each voxel, swap the dominant WM atom to each same-ICVF adjacent-
     kappa neighbour (``nb_minus``/``nb_plus``, -1 = grid edge), re-solve a

@@ -2,7 +2,7 @@
 
 The reference ships 45 binary files with precomputed hemisphere direction
 sets and 181x181 nearest-direction hash tables
-(/root/reference/amico/directions/, loaded at lut.pyx:47-91).  The TPU build
+(/root/reference/amico/directions/, loaded at lut.pyx:47-91).  This build
 *generates* both deterministically instead of shipping binaries
 (SURVEY.md section 7 step 3):
 

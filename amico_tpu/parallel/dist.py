@@ -16,7 +16,7 @@ standard JAX multi-controller model:
 
 Works on any backend -- multi-process CPU (used by tests/test_dist.py via
 two local processes + gloo collectives), single-process multi-device, and
-TPU pods where the runtime wires the coordinator automatically.
+clusters whose launcher wires the coordinator automatically.
 """
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ def initialize(coordinator_address: str | None = None,
                local_device_ids=None) -> None:
     """Join (or create) the distributed runtime.
 
-    All arguments optional: on TPU pods and SLURM/OMPI launchers JAX
+    All arguments optional: on SLURM/OMPI launchers JAX
     auto-detects them; pass them explicitly for hand-rolled multi-process
     runs (e.g. two local CPU processes).  Safe to call when already
     initialized (no-op) and in single-process runs (num_processes=1 no-op).

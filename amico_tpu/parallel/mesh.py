@@ -1,9 +1,9 @@
 """Device-mesh voxel data parallelism.
 
 The reference's only parallelism is voxel-chunking over host threads
-(/root/reference/amico/models.pyx:204-211,529-541).  The TPU-native analog
-(SURVEY.md sections 2.4, 5.8) is a 1-D ``('data',)`` mesh over the pod
-slice: voxel *tiles* (see models.engine) are sharded across chips; every
+(/root/reference/amico/models.pyx:204-211,529-541).  The analog here
+(SURVEY.md sections 2.4, 5.8) is a 1-D ``('data',)`` mesh over the local
+devices: voxel *tiles* (see models.engine) are sharded across chips; every
 dictionary/kernel tensor is replicated (they are small); no collectives are
 needed in the solve itself -- the problem is embarrassingly parallel -- and
 ``psum``-style reductions are used only for global statistics (the

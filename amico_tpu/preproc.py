@@ -7,7 +7,7 @@ sample*: each measurement S contributes (S - g(E))^2 with
 
     g(E) = sigma sqrt(pi/2) L_{1/2}(-E^2/(2 sigma^2))
 
-the Rician mean.  The TPU build therefore inverts g directly with a
+the Rician mean.  This build therefore inverts g directly with a
 vectorized, fixed-iteration Newton solve over all (voxel, sample) pairs at
 once, using the stable Bessel form
 

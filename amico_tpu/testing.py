@@ -104,29 +104,36 @@ def demo_voxels(n: int, kernels: dict, htable: np.ndarray, seed: int = 0):
 
 
 def noddi_oracle_voxel(kernels, dwi_idx, y_i, lut_i, lam1=0.5, lam2=1e-3,
-                       algorithm=None, return_x=False):
+                       algorithm=None, return_x=False, is_exvivo=False):
     """Exact per-voxel NODDI 3-stage reference solve -- the SHARED oracle
-    used by the bench's accuracy audit and the tail-analysis tools (one
-    definition so a recipe change cannot desynchronize a tool's 'oracle'
-    from the judged one).  Mirrors reference models.pyx:900-981:
+    used by the bench's and chip_smoke.py's accuracy audits and the tests
+    (one definition so a recipe change cannot desynchronize an audit's
+    'oracle' from another's).  Mirrors reference models.pyx:900-981:
     (1) NNLS on the full dictionary for the CSF fraction; (2) non-negative
     lasso (LARS by default, the algorithm SPAMS runs) on the norm-scaled
-    DWI subproblem with the iso prediction subtracted, clipped >= 0;
-    (3) debias re-NNLS on the positive support with iso forced in.
-    Returns the (NDI, ODI, FWF) vector; with ``return_x``, the tuple
-    ``(maps, x, x2)`` where ``x`` is the debiased coefficient vector and
-    ``x2`` the raw stage-2 solution (the tail tools dissect both)."""
+    DWI subproblem with the iso (and ex-vivo dot) prediction subtracted,
+    clipped >= 0; (3) debias re-NNLS on the positive support with iso
+    (and dot) forced in.  Returns the (NDI, ODI, FWF[, dot]) vector; with
+    ``return_x``, the tuple ``(maps, x, x2)`` where ``x`` is the debiased
+    coefficient vector and ``x2`` the raw stage-2 solution."""
     from .ops import native
     n_wm = kernels['wm'].shape[0]
-    A = np.column_stack([kernels['wm'][:, lut_i, :].T, kernels['iso']])
+    n_tail = 2 if is_exvivo else 1            # [dot,] iso after the WM atoms
+    cols = [kernels['wm'][:, lut_i, :].T]
+    if is_exvivo:
+        cols.append(np.ones(kernels['iso'].shape[0]))
+    A = np.column_stack(cols + [kernels['iso']])
     x1, _ = native.nnls(A, y_i)
-    y2 = np.clip(y_i[dwi_idx] - x1[-1] * kernels['iso'][dwi_idx], 0, None)
+    y2 = y_i[dwi_idx] - x1[-1] * kernels['iso'][dwi_idx]
+    if is_exvivo:
+        y2 = y2 - x1[n_wm]
+    y2 = np.clip(y2, 0, None)
     A2 = A[dwi_idx][:, :n_wm] * kernels['norms'][None, :]
     kw = {} if algorithm is None else {'algorithm': algorithm}
     x2 = native.lasso(A2, y2, lam1, lam2, **kw)
-    x = np.zeros(n_wm + 1)
+    x = np.zeros(n_wm + n_tail)
     x[:n_wm] = x2
-    x[-1] = 1.0
+    x[n_wm:] = 1.0
     sup = np.where(x > 0)[0]
     x3, _ = native.nnls(A[:, sup], y_i)
     x[:] = 0.0
@@ -137,6 +144,9 @@ def noddi_oracle_voxel(kernels, dwi_idx, y_i, lut_i, lam1=0.5, lam2=1e-3,
     f1 = np.sum(kernels['icvf'] * xn) / sw
     f2 = np.sum((1 - kernels['icvf']) * xn) / sw
     k1 = np.sum(kernels['kappa'] * xn) / sw
-    maps = np.array([f1 / (f1 + f2 + 1e-16),
-                     2 / np.pi * np.arctan2(1.0, k1), x[-1] / sa])
+    maps = [f1 / (f1 + f2 + 1e-16), 2 / np.pi * np.arctan2(1.0, k1),
+            x[-1] / sa]
+    if is_exvivo:
+        maps.append(x[n_wm] / sa)
+    maps = np.array(maps)
     return (maps, x, x2) if return_x else maps

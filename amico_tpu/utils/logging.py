@@ -1,6 +1,6 @@
 """Verbosity-gated logging.
 
-TPU-native re-design of the reference logging utilities
+Re-design of the reference logging utilities
 (/root/reference/amico/util.py:5-49).  Functional parity:
 
 * global verbosity level 0-3 with ``set_verbose``/``get_verbose``
@@ -8,7 +8,7 @@ TPU-native re-design of the reference logging utilities
 * ANSI-colored ``PRINT/LOG/NOTE/WARNING/ERROR`` gates (util.py:26-49)
 
 Design delta: the reference's ``ERROR`` prints and *exits the process*
-(util.py:42-49).  In a framework that may be driving a multi-host TPU job,
+(util.py:42-49).  In a framework that may be driving a multi-host device job,
 killing the interpreter from library code is hostile, so ``ERROR`` raises
 :class:`AmicoError` instead (still printing the same colored message).
 """

@@ -2,7 +2,7 @@
 
 Replaces the reference's external ``dicelib.ui.ProgressBar`` dependency
 (/root/reference/amico/core.py:19, models.pyx:11).  The reference also has a
-multithread shared-counter variant (models.pyx:28-43); in the TPU build the
+multithread shared-counter variant (models.pyx:28-43); here the
 fit is a handful of large device dispatches, so progress is reported per
 batch instead of per voxel.
 """

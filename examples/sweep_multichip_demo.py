@@ -7,8 +7,8 @@ subject granularity.  The reference scales this with one CPU thread per
 core per subject (amico/models.pyx:529-541); here the same sweep rides a
 ``jax.sharding.Mesh`` and fits each full brain in one pass.
 
-Runs anywhere: on a TPU host it uses the real chips; elsewhere emulate a
-pod slice with virtual CPU devices:
+Runs anywhere: on a multi-GPU host it uses the real cards; elsewhere
+emulate several devices with virtual CPU devices:
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/sweep_multichip_demo.py [study_dir]

@@ -1,17 +1,17 @@
-// amico_native: exact host-side solvers for the TPU-native AMICO framework.
+// amico_native: exact host-side solvers for the amico_tpu framework.
 //
 // The reference framework's only numerical solvers are SPAMS' C++ `nnls`
 // (active-set non-negative least squares) and `lasso` (non-negative
 // elastic net), called per voxel from Cython
 // (/root/reference/amico/models.pyx:18,615,911,926,940,1238,1569).
-// This library provides the TPU build's native counterpart: an exact
+// This library provides this build's native counterpart: an exact
 // active-set solver for the generic strictly-convex non-negative QP
 //     min_x 0.5 x'Gx - b'x   s.t. x >= 0
 // which covers every reference solver call after the normal-equation
 // reduction (SURVEY.md section 2.3):
 //   * nnls(A, y):             G = A'A,          b = A'y
 //   * lasso(A, y, l1, l2):    G = A'A + l2 I,   b = A'y - l1
-// Used as (a) the correctness oracle for the batched TPU solvers and
+// Used as (a) the correctness oracle for the batched device solvers and
 // (b) a CPU fallback path. Exported with a plain C ABI for ctypes.
 //
 // Build: make -C native   ->  libamico_native.so
@@ -362,7 +362,7 @@ int amico_lasso_lars(const double* A, const double* y, int m, int n,
 // native stage mirrors the reference's load semantics
 // (/root/reference/amico/core.py:146-158,209-223) at memory-bandwidth
 // speed.  It is a host *runtime* component, not a compute kernel: the
-// solves stay on the TPU (SURVEY.md section 2.3 note on native layers).
+// solves stay on the device (SURVEY.md section 2.3 note on native layers).
 //
 // Layout: `raw` and `out` hold nS volumes of nvox floats each, volume-
 // major -- exactly the NIfTI on-disk order, so `raw` can be the mmap of

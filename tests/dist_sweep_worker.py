@@ -1,7 +1,6 @@
 """Worker for tests/test_dist.py: distributed SubjectSweep coverage.
 
-One rank of a 2-process CPU cluster exercising, in order (VERDICT r2
-item 7):
+One rank of a 2-process CPU cluster exercising, in order:
 
 1. sweep run over subject s1 (coordinator-only writes);
 2. a FRESH sweep (simulated restart) over [s1, s2] with resume=True:

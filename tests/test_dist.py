@@ -82,7 +82,7 @@ def _free_port():
 def test_two_process_sweep_resume_and_shared_atoms(tmp_path):
     """Distributed SubjectSweep: collective resume after a simulated
     restart, coordinator-only writes, fail-fast on a corrupt subject, and
-    the shared-ATOMS_path generation guard (VERDICT r2 item 7).  All
+    the shared-ATOMS_path generation guard.  All
     assertions live in tests/dist_sweep_worker.py and run on both ranks."""
     workdir = str(tmp_path)
     port = _free_port()

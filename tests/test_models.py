@@ -1,4 +1,4 @@
-"""Model-fit parity tests: batched TPU fits vs a per-voxel NumPy oracle that
+"""Model-fit parity tests: batched device fits vs a per-voxel NumPy oracle that
 transcribes the reference _fit loops (models.pyx:544-652,814-991,1166-1286,
 1507-1627) using the exact native active-set solvers."""
 import os

@@ -98,6 +98,6 @@ def test_debias_pipeline_entry_matches_oracle():
     sigma = vox[:, scheme.b0_idx].mean(axis=1) / SNR
     oracle = _oracle_debias(vox, sigma)
     delta = np.abs(ours[mask > 0] - oracle)
-    # bound the max-abs per-voxel difference (VERDICT round 1, item 7)
+    # bound the max-abs per-voxel difference
     assert np.max(delta) < 1e-2, np.max(delta)
     assert np.median(delta) < 1e-3

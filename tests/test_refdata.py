@@ -59,7 +59,7 @@ def test_vendored_matches_shipped_binaries():
 @needs_ref
 def test_bundle_matches_shipped_binaries_all_ndirs():
     """The vendored npz bundle is bit-identical to every shipped binary
-    (VERDICT r2 item 3: out-of-box parity at every valid ndirs)."""
+    (out-of-box parity at every valid ndirs)."""
     import re as _re
     shipped = sorted(int(m.group(1)) for f in os.listdir(REF_DIRS)
                      if (m := _re.fullmatch(r'ndirs=(\d+)\.bin', f)))

@@ -378,12 +378,12 @@ def test_every_get_config_key_is_declared_or_stage_set():
 
 
 def test_persistent_cache_strips_location_tracebacks():
-    """Round-5 cache-key fix: whenever the persistent compilation cache is
+    """Cache-key stability: whenever the persistent compilation cache is
     enabled (the test suite enables it via amico_tpu.testing), Python
-    tracebacks must be stripped from MLIR locations -- the Mosaic payload
-    embeds them beyond the reach of the cache key's strip-debuginfo pass,
-    so leaving them in re-keys the fused-kernel executable per CALL SITE
-    (warmup/cache-bundle/cross-process warm starts all silently broken).
+    tracebacks must be stripped from MLIR locations -- a custom-call
+    payload embeds them beyond the reach of the cache key's
+    strip-debuginfo pass, so leaving them in re-keys such an executable
+    per CALL SITE (warmup/cache-bundle/cross-process warm starts).
     Opt-out is AMICO_TPU_FULL_LOCATIONS=1 (not set in the suite)."""
     import jax
 

@@ -45,22 +45,6 @@ def test_default_solver_reaches_supports_beyond_round_count():
     np.testing.assert_allclose(x, x_oracle, atol=5e-6)
 
 
-def test_default_solver_reaches_large_supports_pallas():
-    """Same truncation fix on the VMEM tile kernel path."""
-    from amico_tpu.ops.pallas_qp import nneg_qp_tiles_pallas
-    import jax.numpy as jnp
-
-    G, b, x_oracle, lam2 = _dense_support_problem()
-    Gt = jnp.asarray(G, jnp.float32)[None]
-    bt = jnp.asarray(b, jnp.float32)[None, None]
-    L = jnp.ones((1,), jnp.float32)
-    x = np.asarray(nneg_qp_tiles_pallas(Gt, bt, L, 0.0, lam2,
-                                        interpret=True,
-                                        **DEFAULT_AS_SOLVER_KW))[0, 0]
-    assert (x > 1e-9).sum() == (x_oracle > 1e-9).sum()
-    np.testing.assert_allclose(x, x_oracle, atol=5e-6)
-
-
 def test_converge_costs_nothing_when_schedule_suffices():
     """Sparse-support problems (the common case) must return the identical
     solution with and without the continuation -- it only engages when the
@@ -223,11 +207,12 @@ def test_converge_matches_oracle_randomized(seed):
 
 def test_solver_kw_presets_accepted_by_both_backends():
     """API contract: every key in the model solver presets must be
-    accepted by both the XLA and Pallas entry points (the TPU fit path
-    forwards them verbatim via _fitops.solve_tiles), and the two
-    backends must agree with the oracle on the CZB-shaped preset too."""
+    accepted by the solver entry points the models call -- the batched
+    solver itself and the per-tile wrapper the fit chunks go through
+    (_fitops.solve_tiles forwards them verbatim) -- and both must agree
+    with the oracle on the CZB-shaped preset too."""
+    from amico_tpu.models._fitops import solve_tiles
     from amico_tpu.models.base import DENSE_AS_SOLVER_KW
-    from amico_tpu.ops.pallas_qp import nneg_qp_tiles_pallas
     import jax.numpy as jnp
 
     G, b, x_oracle, lam2 = _dense_support_problem(seed=7)
@@ -236,7 +221,7 @@ def test_solver_kw_presets_accepted_by_both_backends():
     L = jnp.ones((1,), jnp.float32)
     for kw in (DEFAULT_AS_SOLVER_KW, DENSE_AS_SOLVER_KW):
         x1 = np.asarray(nneg_qp_batch(G, b, 0.0, lam2, **kw))
-        x2 = np.asarray(nneg_qp_tiles_pallas(Gt, bt, L, 0.0, lam2,
-                                             interpret=True, **kw))[0, 0]
+        x2 = np.asarray(solve_tiles(Gt, bt, L, 0.0, lam2,
+                                    solver_kw=kw))[0, 0]
         np.testing.assert_allclose(x1, x_oracle, atol=5e-5)
         np.testing.assert_allclose(x2, x_oracle, atol=5e-5)

@@ -107,7 +107,7 @@ def test_exact_zeros_for_support_detection():
 
 
 def test_float32_accuracy_noddi_like():
-    """f32 path (TPU dtype) must stay close to the f64 oracle at map level."""
+    """f32 path (the device dtype) must stay close to the f64 oracle at map level."""
     A, Y = _random_problems(B=10, m=100, n=40, seed=8, correlated=True)
     X32 = np.asarray(nneg_lasso_from_A(jnp.asarray(A, jnp.float32),
                                        jnp.asarray(Y, jnp.float32),
@@ -122,9 +122,11 @@ def test_add_k_oracle_parity_both_backends():
     """Top-k atom adds (add_k=2,3) must reach the same oracle vertex as
     classic single adds: wrongly co-added atoms are pruned by the
     line-search (which excludes entering x==0 atoms from the ratio test --
-    the livelock regression this guards, see pallas_qp inner_solve)."""
+    the livelock regression this guards, see nneg_qp_batch inner_solve),
+    both on the flat batch and through the per-tile wrapper the fit
+    chunks call."""
+    from amico_tpu.models._fitops import solve_tiles
     from amico_tpu.ops.solvers import gram, nneg_qp_batch
-    from amico_tpu.ops.pallas_qp import nneg_qp_tiles_pallas
 
     rng = np.random.RandomState(0)
     m, n, B = 40, 20, 16
@@ -140,8 +142,8 @@ def test_add_k_oracle_parity_both_backends():
         xk = np.asarray(nneg_qp_batch(jnp.asarray(G), jnp.asarray(b),
                                       add_k=k, **kw))
         assert np.abs(xk - x_or).max() < 5e-4, (k, np.abs(xk - x_or).max())
-    xp = np.asarray(nneg_qp_tiles_pallas(
+    xp = np.asarray(solve_tiles(
         jnp.asarray(np.broadcast_to(G, (2, n, n)).copy()),
-        jnp.asarray(b.reshape(2, 8, n).copy()), jnp.ones(2),
-        add_k=2, interpret=True, **kw))
+        jnp.asarray(b.reshape(2, 8, n).copy()), jnp.ones(2), 0.0, 0.0,
+        solver_kw=dict(add_k=2, **kw)))
     assert np.abs(xp.reshape(B, n) - x_or).max() < 5e-4

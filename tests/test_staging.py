@@ -78,10 +78,9 @@ def test_gather_warm_refit_reuses_staged_signal(tmp_path):
 
 
 def test_non_power_of_two_tile_width_bit_stable(tmp_path):
-    """The round-4 width ladder offers every multiple of 128 (M=896 at
-    full brain); the tile plan, padding, and solve must be bit-stable
-    across power-of-two and non-power-of-two widths (per-lane math is
-    lane-count independent)."""
+    """``tile_size`` is a free config value; the tile plan, padding, and
+    solve must be bit-stable across power-of-two and non-power-of-two
+    widths (per-lane math is lane-count independent)."""
     os.environ['AMICO_TPU_HOME'] = str(tmp_path / 'home')
     model, kernels, htable = demo_noddi(kernels_dir=str(tmp_path / 'k'))
     y, DIRs, _ = demo_voxels(300, kernels, htable, seed=9)
@@ -97,19 +96,3 @@ def test_non_power_of_two_tile_width_bit_stable(tmp_path):
     base = fit_at(32)
     for ts in (24, 48):          # non-power-of-two widths
         np.testing.assert_array_equal(base, fit_at(ts))
-
-
-def test_auto_tile_size_properties():
-    """auto_tile_size returns a multiple of 128 from the ladder and its
-    cost model prefers the width with less padding when per-step
-    overhead is negligible relative to bucket size."""
-    from amico_tpu.models.engine import auto_tile_size
-    rng = np.random.RandomState(3)
-    for n_vox in (50_000, 409_600, 1_000_000):
-        counts = np.bincount(rng.randint(0, 500, n_vox), minlength=500)
-        m = auto_tile_size(counts)
-        assert m % 128 == 0 and 128 <= m <= 1024
-    # full-brain-like buckets (~819 avg) must pick 896, not 1024: the
-    # power-of-two ladder left 11% padding on the table (round 4)
-    counts = np.bincount(rng.randint(0, 500, 409_600), minlength=500)
-    assert auto_tile_size(counts) == 896

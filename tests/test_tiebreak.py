@@ -5,10 +5,8 @@ the NODDI stage-2 non-negative lasso has several vertices within ~0.1%
 relative objective whose supports differ by adjacent kappa-grid atoms; a
 greedy active-set path can land one cell off the exact (LARS) vertex.
 The tie-break swaps the dominant WM atom to its kappa neighbours and keeps
-the lowest objective (ops.solvers.noddi_stage2_tiebreak + the in-kernel
-twin in ops.pallas_qp)."""
+the lowest objective (ops.solvers.noddi_stage2_tiebreak)."""
 import numpy as np
-import pytest
 
 import jax.numpy as jnp
 
@@ -107,72 +105,3 @@ def test_tiebreak_never_worsens_objective():
     assert (F1 <= F0 + 1e-5).all()
     # the incumbent is the exact optimum here, so nearly all voxels keep it
     assert np.median(np.abs(F1 - F0)) < 1e-5
-
-
-@pytest.fixture(scope='module')
-def noddi_fused_inputs():
-    """Small NODDI-shaped fused-kernel inputs on a 3x4 (icvf x kappa)
-    grid, 2 tiles x 16 lanes."""
-    rng = np.random.RandomState(1)
-    n_wm, nS, ndwi, C, M = 12, 20, 16, 2, 16
-    icvf = np.tile(np.array([0.3, 0.6, 0.9]), 4).astype(np.float32)
-    kappa = np.repeat(np.array([0.5, 1.0, 2.0, 4.0]), 3).astype(np.float32)
-    A = rng.rand(C, nS, n_wm + 1).astype(np.float32)
-    # make two adjacent-kappa atoms near-duplicates (degeneracy source)
-    A[:, :, 4] = A[:, :, 7] + 1e-3 * rng.randn(C, nS).astype(np.float32)
-    Y = np.abs(rng.rand(C, M, nS)).astype(np.float32)
-    dwi_rows = np.arange(nS - ndwi, nS)
-    norms = 1.0 / np.linalg.norm(A[0, dwi_rows, :n_wm], axis=0)
-    A2 = A[:, dwi_rows, :n_wm] * norms[None, None, :]
-    G1 = np.einsum('csi,csj->cij', A, A)
-    G2 = np.einsum('csi,csj->cij', A2, A2)
-    b1 = np.einsum('csi,cms->cmi', A, Y)
-    iso_dwi = A[0, dwi_rows, -1].copy()
-    return (G1, G2, b1, Y[:, :, dwi_rows], np.swapaxes(A2, 1, 2),
-            iso_dwi, icvf[:n_wm], kappa[:n_wm], icvf, kappa)
-
-
-def test_fused_kernel_tiebreak_matches_xla_twin(noddi_fused_inputs):
-    """The in-kernel tie-break (interpret mode) and the XLA helper agree
-    through the full 3-stage solve: estimates with tiebreak on stay within
-    the cross-path tolerance of the stagewise+tiebreak result, and the
-    tie-break changes at most improves the stage-2 objective."""
-    from amico_tpu.ops.pallas_qp import noddi_fused_tiles_pallas
-
-    (G1, G2, b1, Y_dwi, A2T, iso_dwi, icvf, kappa,
-     icvf_full, kappa_full) = noddi_fused_inputs
-    nbm, nbp = _kappa_neighbours(icvf_full, kappa_full)
-    kw = dict(lam1=0.5, lam2=1e-3, fista_iters=0, refine_rounds=10,
-              cg_iters=12, inner_passes=2, interpret=True)
-    est_off = np.asarray(noddi_fused_tiles_pallas(
-        G1, G2, b1, Y_dwi, A2T, iso_dwi, icvf, kappa, **kw))
-    est_on = np.asarray(noddi_fused_tiles_pallas(
-        G1, G2, b1, Y_dwi, A2T, iso_dwi, icvf, kappa,
-        nb_minus=nbm, nb_plus=nbp, tiebreak_cg=8, **kw))
-    assert np.isfinite(est_on).all()
-    # tie-break only moves degenerate voxels; the bulk is unchanged
-    delta = np.abs(est_on - est_off)
-    assert np.median(delta) < 1e-5
-    assert delta.max() < 0.5
-
-
-def test_fused_kernel_tie_score_diagnostic(noddi_fused_inputs):
-    """want_tie: the degeneracy-score output (round-5 diagnostic).  The
-    score is the max normalized KKT gradient over excluded atoms: near 0
-    on voxels with a tied alternative vertex, strongly negative on
-    clearly-decided voxels, and its presence must not change the maps."""
-    from amico_tpu.ops.pallas_qp import noddi_fused_tiles_pallas
-
-    (G1, G2, b1, Y_dwi, A2T, iso_dwi, icvf, kappa, _, _) = noddi_fused_inputs
-    kw = dict(lam1=0.5, lam2=1e-3, fista_iters=0, refine_rounds=10,
-              cg_iters=12, inner_passes=2, interpret=True)
-    est = np.asarray(noddi_fused_tiles_pallas(
-        G1, G2, b1, Y_dwi, A2T, iso_dwi, icvf, kappa, **kw))
-    est2, tie = noddi_fused_tiles_pallas(
-        G1, G2, b1, Y_dwi, A2T, iso_dwi, icvf, kappa, want_tie=True, **kw)
-    est2, tie = np.asarray(est2), np.asarray(tie)
-    np.testing.assert_allclose(est2, est, atol=1e-6)
-    assert tie.shape == est.shape[:2]
-    assert np.isfinite(tie).all()
-    # a converged solve leaves no large positive KKT violation
-    assert tie.max() < 0.3, tie.max()

@@ -10,13 +10,15 @@ resulting executables to the rest:
     python tools/cache_bundle.py pack bundle.tar         # on the warm machine
     python tools/cache_bundle.py unpack bundle.tar       # on each cold machine
 
-Only production-fit entries are packed (jitted fit/gather/prep/solver
-programs), not the full experiment history, so bundles stay tens of MB.
-Unpacking never overwrites existing entries.  NB the cache key covers
-the backend compile options and (for Pallas programs) kernel source
-locations -- a bundle is valid per (amico_tpu version x jax/libtpu
-version x backend configuration); mismatched entries are simply never
-hit and cost only disk.
+The cache directory is the one the package itself uses
+(amico_tpu.utils.jaxcfg.compilation_cache_dir): ``JAX_COMPILATION_CACHE_DIR``
+when set, else ``<checkout>/.jax_cache/<machine fingerprint>``.
+Only production-fit entries are packed (jitted fit/gather/prep programs),
+not the full experiment history, so bundles stay tens of MB.  Unpacking
+never overwrites existing entries.  NB the cache key covers the backend,
+device kind and compile options -- a bundle is valid per (amico_tpu
+version x jax version x device configuration); mismatched entries are
+simply never hit and cost only disk.
 """
 from __future__ import annotations
 
@@ -30,17 +32,13 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), '..'
 # executables the production pipeline compiles (names are jax's
 # jit_<function> cache-entry prefixes)
 _PREFIXES = ('jit_fit_gather', 'jit_fit_chunk', 'jit__prep',
-             'jit_noddi_fused_tiles_pallas', 'jit_nneg_qp_tiles_pallas',
              'jit__fit_dti_device', 'jit_convert_element_type')
 
 
 def _cache_dir() -> str:
-    from amico_tpu.utils.jaxcfg import enable_compilation_cache
-    enable_compilation_cache()
-    import jax
-    d = jax.config.jax_compilation_cache_dir
-    if not d:
-        raise SystemExit('persistent compilation cache is not enabled')
+    from amico_tpu.utils.jaxcfg import compilation_cache_dir
+    d = compilation_cache_dir()
+    os.makedirs(d, exist_ok=True)
     return d
 
 
